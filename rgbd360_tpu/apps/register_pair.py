@@ -1,7 +1,7 @@
 """RegisterPairRGBD360 — align two spherical .bin frames
 (reference Registration/RegisterPairRGBD360.cpp:56-171): PbMap match, then
 dense Photo+ICP refinement (the reference uses GICP; the dense spherical
-aligner is the TPU-native superset), artifact dumps instead of the PCL viewer.
+aligner is the accelerator-side superset), artifact dumps instead of the PCL viewer.
 
 Usage: python -m rgbd360_tpu.apps.register_pair <a.bin> <b.bin> [--out DIR]
 """

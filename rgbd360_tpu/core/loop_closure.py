@@ -161,7 +161,7 @@ class LoopClosure360:
             cand_kf = m.frames[cand]
             self.aligner.set_target_frame(cand_kf.sphere_rgb, cand_kf.sphere_depth_mm)
             self.aligner.set_source_frame(new_kf.sphere_rgb, new_kf.sphere_depth_mm)
-            self.aligner.align_frames360(guess, PHOTO_DEPTH, full_coverage=True)
+            self.aligner.align_frames360(guess, PHOTO_DEPTH)
             # same ill-posed filter _refine_batch applies: a singular system
             # leaves the pose at the PbMap seed with a degenerate Hessian
             if not self.aligner.ill_posed:
@@ -200,8 +200,8 @@ class LoopClosure360:
         as the target. Pads to a small bucket size so repeated LC sweeps hit
         the same compiled executable. With more than one device present the
         bucket is split over the pair mesh (SURVEY §2.3: LC candidate
-        refinement is one of the two map-level ops that scale across chips;
-        round-3 review flagged that only the prefilter used the mesh)."""
+        refinement is one of the two map-level ops that scale across
+        devices)."""
         import jax
 
         from rgbd360_tpu.parallel.batch import align_batch
@@ -252,16 +252,10 @@ class LoopClosure360:
 
             mesh = make_mesh(jax.devices()[:n_use])
             res = align_batch_sharded(
-                mesh, *shard_pairs(mesh, *args),
-                n_levels=self.aligner.n_pyr_levels,
-                full_coverage=True,  # LC-scale motion: banded re-gather in-loop
+                mesh, *shard_pairs(mesh, *args), n_levels=self.aligner.n_pyr_levels
             )
         else:
-            res = align_batch(
-                *args,
-                n_levels=self.aligner.n_pyr_levels,
-                full_coverage=True,
-            )
+            res = align_batch(*args, n_levels=self.aligner.n_pyr_levels)
         poses = np.asarray(res.pose)
         av_depth = np.asarray(res.av_depth_residual)
         hessians = np.asarray(res.hessian)

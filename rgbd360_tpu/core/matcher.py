@@ -70,6 +70,22 @@ class MatcherConfig:
             cos_normal_parallel=float(b.get("cos_normal_threshold", 0.985)),
         )
 
+    def to_ini(self, path: str) -> None:
+        """Write the keys from_ini reads, in the reference file's sections."""
+        with open(path, "w") as f:
+            f.write(f"min_planes_recognition = {self.min_planes_recognition}\n\n")
+            f.write("[unary]\n")
+            f.write(f"dist_d = {self.dist_d!r}\n")
+            f.write(f"angle = {self.angle_deg!r}\n")
+            f.write(f"hue_threshold = {self.hue_threshold!r}\n")
+            f.write(f"elongation_threshold = {self.elongation_threshold!r}\n")
+            f.write(f"area_threshold = {self.area_threshold!r}\n\n")
+            f.write("[binary]\n")
+            f.write(f"dist_threshold = {self.dist_threshold!r}\n")
+            f.write(f"angle_threshold = {self.angle_threshold_deg!r}\n")
+            f.write(f"height_threshold = {self.height_threshold!r}\n")
+            f.write(f"cos_normal_threshold = {self.cos_normal_parallel!r}\n")
+
 
 class SubgraphMatcher:
     """Interpretation-tree matcher over two plane subgraphs."""

@@ -34,7 +34,7 @@ def convex_hull_2d(points: np.ndarray) -> np.ndarray:
     vectorized, exactness-preserving reduction (an interior point of that
     octagon is interior to the hull, so it can never be a hull vertex);
     the Python chain then runs on the few boundary candidates. This was the
-    single hottest host op of plane extraction (0.46 s/frame -> ~10 ms)."""
+    single hottest host op of plane extraction."""
     pts = np.asarray(points, np.float64)
     n = len(pts)
     if n >= 8 and _ConvexHull is not None:

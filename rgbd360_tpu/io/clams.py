@@ -78,6 +78,50 @@ class DepthDistortionModel:
         )
 
 
+def identity_clams_model() -> DepthDistortionModel:
+    """A model that leaves every depth unchanged (all multipliers 1), at the
+    shipped models' VGA geometry: 8x6-pixel spatial bins, 2 m depth bins to
+    10 m."""
+    shape = (480 // 6, 640 // 8, 5)
+    return DepthDistortionModel(
+        width=640,
+        height=480,
+        bin_width=8,
+        bin_height=6,
+        bin_depth=2.0,
+        multipliers=np.ones(shape, np.float32),
+        counts=np.zeros(shape, np.float32),
+    )
+
+
+def write_clams_model(path: str, model: DepthDistortionModel) -> None:
+    """Serialize in the format load_clams_model reads. The training sums
+    (total_numerators / total_denominators) are not kept by
+    DepthDistortionModel and are written as zeros."""
+    num_bins_y, num_bins_x, n_depth = model.multipliers.shape
+
+    def eigen_vec(v):
+        v = np.asarray(v, np.float32).reshape(-1)
+        return struct.pack("<iii", 4, len(v), 1) + v.tobytes()
+
+    zeros = np.zeros(n_depth, np.float32)
+    parts = [
+        MAGIC,
+        struct.pack("<iiii", model.width, model.height, model.bin_width, model.bin_height),
+        struct.pack("<d", model.bin_depth),
+        struct.pack("<ii", num_bins_x, num_bins_y),
+    ]
+    for y in range(num_bins_y):
+        for x in range(num_bins_x):
+            parts.append(struct.pack("<did", model.bin_depth * n_depth, n_depth, model.bin_depth))
+            parts.append(eigen_vec(model.counts[y, x]))
+            parts.append(eigen_vec(zeros))
+            parts.append(eigen_vec(zeros))
+            parts.append(eigen_vec(model.multipliers[y, x]))
+    with open(path, "wb") as f:
+        f.write(b"".join(parts))
+
+
 def load_clams_model(path: str) -> DepthDistortionModel:
     with open(path, "rb") as f:
         cur = _Cursor(f.read())

@@ -3,7 +3,7 @@
 // cv::Mat record layout per
 // OpenNI2_Grabber/third_party/cvSerialization/cvmat_serialization.h:23-55),
 // plus a threaded in-order prefetcher so sequence apps overlap file IO +
-// parsing with TPU compute. Mirrors rgbd360_tpu/io/boost_archive.py; the
+// parsing with device compute. Mirrors rgbd360_tpu/io/boost_archive.py; the
 // Python reader remains the reference implementation and the fallback.
 //
 // Built by rgbd360_tpu/io/native_loader.py with:

@@ -335,13 +335,25 @@ def _read_cimage(f: BinaryIO) -> np.ndarray:
             if not 0 < n_bytes <= 1 << 28:
                 raise ValueError(f"implausible CImage blob of {n_bytes} bytes")
             blob = np.frombuffer(_read(f, n_bytes), np.uint8)
-            import cv2
-
+            cv2 = _import_cv2("decode a compressed (JPEG/PNG) CImage")
             img = cv2.imdecode(blob, cv2.IMREAD_UNCHANGED)
             if img is None:
                 raise ValueError("CImage: cv2 could not decode compressed blob")
     _expect_end(f, name)
     return img
+
+
+def _import_cv2(purpose: str):
+    """OpenCV is needed only for compressed CImage payloads, which no other
+    path of the program reads or writes."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"OpenCV (cv2) is required to {purpose} in an MRPT rawlog; "
+            "raw (uncompressed) CImage payloads need no extra package"
+        ) from e
+    return cv2
 
 
 def _write_cimage(f: BinaryIO, img: np.ndarray, jpeg: bool = False) -> None:
@@ -363,8 +375,7 @@ def _write_cimage(f: BinaryIO, img: np.ndarray, jpeg: bool = False) -> None:
     else:
         _write_fmt(f, "B", 1)  # color
         if jpeg:
-            import cv2
-
+            cv2 = _import_cv2("encode a JPEG CImage")
             ok, blob = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 95])
             if not ok:
                 raise ValueError("cv2 JPEG encode failed")

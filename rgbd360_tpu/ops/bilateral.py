@@ -55,28 +55,29 @@ def fast_bilateral_z(z: jnp.ndarray) -> jnp.ndarray:
     yi = jnp.broadcast_to(yi, (h, w))
     xi = jnp.broadcast_to(xi, (h, w))
 
-    # splat WITHOUT a scatter (XLA TPU scatters are per-element priced —
-    # 7 ms/frame measured): the spatial cell (yi, xi) of every pixel is
-    # FIXED by the pixel grid, only the depth bin is data-dependent. So bin
-    # densely over depth (one compare per (pixel, bin)) and contract the
-    # pixel axes with static 0/1 cell-membership matrices on the MXU.
-    hp = jax.lax.Precision.HIGHEST  # bf16 would swamp metre-scale z sums
+    # splat WITHOUT a scatter (a data-dependent scatter-add; whether it is
+    # slower than this dense form is not measured on the H100): the spatial
+    # cell (yi, xi) of every pixel is FIXED by the pixel grid, only the depth
+    # bin is data-dependent. So bin densely over depth (one compare per
+    # (pixel, bin)) and contract the pixel axes with static 0/1
+    # cell-membership matrices. The contractions run at full f32 (package
+    # matmul policy, rgbd360_tpu/__init__.py): TF32 would swamp metre-scale
+    # z sums.
     oh = (di[..., None] == jnp.arange(gd, dtype=jnp.int32)) & valid[..., None]
     ohf = oh.astype(jnp.float32)
     dense = jnp.stack([ohf * zv[..., None], ohf], axis=-1)  # (h, w, gd, 2)
     sy = (yi[:, 0, None] == jnp.arange(gh, dtype=jnp.int32)).astype(jnp.float32)
     sx = (xi[0, :, None] == jnp.arange(gw, dtype=jnp.int32)).astype(jnp.float32)
-    grid = jnp.einsum("rg,rwdc->gwdc", sy, dense, precision=hp)
-    grid = jnp.einsum("wx,gwdc->gxdc", sx, grid, precision=hp)
+    grid = jnp.einsum("rg,rwdc->gwdc", sy, dense)
+    grid = jnp.einsum("wx,gwdc->gxdc", sx, grid)
     for axis in range(3):
         grid = _blur_axis(grid, axis)
 
     # trilinear slice = fixed spatial bilinear x data-dependent depth linear.
     # The spatial corner positions/weights depend only on the PIXEL GRID, so
     # the (y, x) half is a static bilinear resize — two tiny dense matmuls —
-    # and only the depth axis needs per-pixel gathers: 2 takes instead of 8
-    # (XLA TPU gathers are per-element priced; this was the hottest op of
-    # the whole plane-extraction device program, ~15 -> ~4 ms/frame)
+    # and only the depth axis is data-dependent (its cost against the
+    # 8-corner gather form is not measured on the H100)
     y1d = yy[:, 0]
     x1d = xx[0, :]
     y0r = jnp.clip(jnp.floor(y1d).astype(jnp.int32), 0, gh - 2)
@@ -91,22 +92,21 @@ def fast_bilateral_z(z: jnp.ndarray) -> jnp.ndarray:
         jax.nn.one_hot(x0c, gw, dtype=jnp.float32) * (1 - fx1)[:, None]
         + jax.nn.one_hot(x0c + 1, gw, dtype=jnp.float32) * fx1[:, None]
     )
-    # precision=HIGHEST everywhere: TPU matmuls default to bf16, whose ~2
-    # significant digits on metre-scale z swamp the 0.02 m segmentation
-    # threshold downstream (observed: 15 -> 7 merged planes on the frame)
-    up = jnp.einsum("rg,gwdc->rwdc", wy, grid, precision=hp)
-    up = jnp.einsum("xw,rwdc->rxdc", wx, up, precision=hp)  # (h, w, gd, 2)
+    # full f32 matters here too: reduced-precision z would swamp the
+    # 0.02 m segmentation threshold downstream (observed with a 2-digit
+    # matmul precision: 15 -> 7 merged planes on the bundled frame)
+    up = jnp.einsum("rg,gwdc->rwdc", wy, grid)
+    up = jnp.einsum("xw,rwdc->rxdc", wx, up)  # (h, w, gd, 2)
 
     # depth slice, also gather-free: a per-pixel two-hot weight row over the
-    # depth bins contracted against the upsampled profiles (the two
-    # take_along_axis this replaces cost 5.4 ms/frame)
+    # depth bins contracted against the upsampled profiles
     z0 = jnp.clip(jnp.floor(dd).astype(jnp.int32), 0, gd - 2)
     fz = dd - z0
     bins = jnp.arange(gd, dtype=jnp.int32)
     wz = (z0[..., None] == bins) * (1 - fz)[..., None] + (
         (z0 + 1)[..., None] == bins
     ) * fz[..., None]
-    acc = jnp.einsum("rwd,rwdc->rwc", wz, up, precision=hp)
+    acc = jnp.einsum("rwd,rwdc->rwc", wz, up)
     num = acc[..., 0]
     den = acc[..., 1]
     zf = jnp.where(den > 1e-12, num / jnp.maximum(den, 1e-12), z)

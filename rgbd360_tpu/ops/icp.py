@@ -3,7 +3,7 @@ PCL GICP calls of the reference (Registration/RegisterPairRGBD360.cpp:112-142
 and RegisterPhotoICP::alignPyramidICP, include/RegisterPhotoICP.h:4799-4860:
 max correspondence 0.3 m, 10 iterations, transformation epsilon 1e-6).
 
-Instead of a KD-tree (hostile to TPU), correspondences use the panorama's
+Instead of a KD-tree (a data-dependent tree walk per point), correspondences use the panorama's
 projective structure: a source point transformed by the current pose is
 matched to the target point stored at its projected pixel — the same
 projective data association the dense aligner uses, so the whole ICP is the
@@ -88,8 +88,8 @@ def icp_point_to_plane_sphere(
         jac = jnp.concatenate([n, jnp.cross(p, n)], axis=-1)
         jac = jnp.where(ok[:, None], jac, 0.0)
         r_m = jnp.where(ok, r, 0.0)
-        H = jnp.matmul(jac.T, jac, precision=jax.lax.Precision.HIGHEST)
-        g = jnp.matmul(jac.T, r_m, precision=jax.lax.Precision.HIGHEST)
+        H = jac.T @ jac
+        g = jac.T @ r_m
         n_ok = jnp.sum(ok)
         fitness = jnp.sum(r_m * r_m) / jnp.maximum(n_ok, 1)
         return H, g, fitness, n_ok

@@ -123,5 +123,5 @@ def mask_sensor_seams(grad: jnp.ndarray, num_sensors: int = 8) -> jnp.ndarray:
     """Zero the 2-pixel columns at sensor joints of a spherical panorama to
     suppress auto-shutter seams (reference RegisterPhotoICP.h:4537-4549).
     Implemented as a broadcast multiply — a column-list .at[].set would lower
-    to a TPU scatter."""
+    to a scatter."""
     return grad * jnp.asarray(_seam_mask(grad.shape[1], num_sensors))

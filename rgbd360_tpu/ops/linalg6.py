@@ -1,10 +1,10 @@
 """Tiny fixed-size linear algebra for the 6-DoF Gauss-Newton systems.
 
-TPU lowers jnp.linalg.{solve,det} on small matrices to generic LU loops that
-cost ~1 ms per call — dominating the aligner's while_loop. The normal
-equations here are symmetric (H = J^T J), so an unrolled 6x6 Cholesky
-(21 scalar ops + two triangular substitutions) does the job in microseconds
-and doubles as the observability check (positive pivots == full rank,
+jnp.linalg.{solve,det} on small matrices lower to generic LU routines; the
+normal equations here are symmetric (H = J^T J), so an unrolled 6x6
+Cholesky (21 scalar ops + two triangular substitutions) does the job inside
+the aligner's while_loop (its speed against jnp.linalg is not measured on
+the H100) and doubles as the observability check (positive pivots == full rank,
 replacing the reference's Eigen rank() test at RegisterPhotoICP.h:4682).
 """
 

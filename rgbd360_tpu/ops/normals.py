@@ -4,7 +4,7 @@ Equivalent of PCL IntegralImageNormalEstimation in AVERAGE_3D_GRADIENT mode
 as configured by the reference (include/Frame360.h:949-967: smoothing 8,
 max depth change 0.02, depth-dependent smoothing): per-pixel central-
 difference 3D gradients along image x and y are box-averaged (validity-aware,
-via cumulative-sum integral images — the TPU-friendly equivalent of PCL's
+via cumulative-sum integral images — the dense-tensor equivalent of PCL's
 integral images), and the normal is the normalized cross product, flipped
 toward the viewpoint. Pixels whose averaging window straddles a depth
 discontinuity larger than max_depth_change*depth are rejected like PCL's
@@ -46,8 +46,8 @@ def _box_sum_var(
     """Sum over a per-pixel (2*r_px+1)^2 window (PCL's variable smoothing
     window), r_px in [1, r_max]. r_max is small and static, so this is
     r_max STATIC box sums from one shared integral image + a select chain —
-    the per-pixel corner GATHERS this replaces were per-element priced on
-    TPU and dominated the normals stage. Bit-identical output (same corner
+    it replaces per-pixel corner gathers (their cost against this form is
+    not measured on the H100). Bit-identical output (same corner
     values from the same integral image, selected instead of gathered)."""
     h, w = img.shape[:2]
     if ii is None:

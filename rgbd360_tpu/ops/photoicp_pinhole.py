@@ -51,7 +51,6 @@ from rgbd360_tpu.ops.photoicp import (
     LevelData,
     _gather_rows,
     _huber_weight,
-    _mm,
     _bits_f32,
     _unpack2_f16,
     build_pyramid_set,
@@ -119,16 +118,16 @@ def fused_sweep_pinhole(
 
     if cam_rt is None:
         R, t = pose[:3, :3], pose[:3, 3]
-        q = _mm(xyz, R.T) + t  # camera-frame warped points
+        q = xyz @ R.T + t  # camera-frame warped points
         pr2 = q  # jacobian anchor point
         r_basis = jnp.eye(3, dtype=pose.dtype)
     else:
         # robot-frame: p_robot' = pose @ (cam_rt @ p_cam); q = cam_rt^-1 p_robot'
         r_cr = cam_rt[:3, :3]
         t_cr = cam_rt[:3, 3]
-        p_robot = _mm(xyz, r_cr.T) + t_cr
-        pr2 = _mm(p_robot, pose[:3, :3].T) + pose[:3, 3]
-        q = _mm(pr2 - t_cr, r_cr)  # rows: R_cr^-1 (pr2 - t_cr), R_cr orthonormal
+        p_robot = xyz @ r_cr.T + t_cr
+        pr2 = p_robot @ pose[:3, :3].T + pose[:3, 3]
+        q = (pr2 - t_cr) @ r_cr  # rows: R_cr^-1 (pr2 - t_cr), R_cr orthonormal
         r_basis = r_cr.T  # row-chain: j3 @ R_cr^-1 == j3 @ r_cr.T
 
     z = q[:, 2]
@@ -181,7 +180,7 @@ def fused_sweep_pinhole(
     def chain(j3):
         """(N,3) camera-frame row-gradient -> (N,6) twist jacobian:
         j3 @ R_cr^-1 @ [I | -skew(pr2)]  (reference :5160-5165)."""
-        j3r = _mm(j3, r_basis)
+        j3r = j3 @ r_basis
         jw = jnp.stack(
             [
                 pr2[:, 1] * j3r[:, 2] - pr2[:, 2] * j3r[:, 1],
@@ -225,8 +224,8 @@ def fused_sweep_pinhole(
         res = jnp.where(visible, wgt * diff, 0.0)
         jac = wgt[:, None] * (ggx[:, None] * chain(j_u) + ggy[:, None] * chain(j_v))
         jac = jnp.where(hg_ok[:, None], jac, 0.0)
-        H = H + _mm(jac.T, jac)
-        g = g + _mm(jac.T, jnp.where(hg_ok, res, 0.0))
+        H = H + jac.T @ jac
+        g = g + jac.T @ jnp.where(hg_ok, res, 0.0)
         photo_err2 = jnp.sum(res * res)
         n_photo = jnp.sum(visible.astype(jnp.int32))
         err2 += photo_err2
@@ -244,8 +243,8 @@ def fused_sweep_pinhole(
         )
         hg_depth = depth_ok & hg_ok
         jac = jnp.where(hg_depth[:, None], jac, 0.0)
-        H = H + _mm(jac.T, jac)
-        g = g + _mm(jac.T, jnp.where(hg_depth, res, 0.0))
+        H = H + jac.T @ jac
+        g = g + jac.T @ jnp.where(hg_depth, res, 0.0)
         depth_err2 = jnp.sum(res * res)
         n_depth = jnp.sum(depth_ok.astype(jnp.int32))
         err2 += depth_err2
@@ -329,9 +328,7 @@ def _align_level_pinhole(level, k_full, lvl_idx, pose0, method, *, max_iters, to
         def try_step(damp):
             x, sok = linalg6.solve6_sym(H + damp * (eye * H) + (~ok) * eye, g)
             update = -x
-            # full-f32 compose: default bf16 matmul quantizes the accepted
-            # pose below the loop's own tolerances (see photoicp.py)
-            new_pose = _mm(se3.exp_se3(update, pseudo=False), pose)
+            new_pose = se3.exp_se3(update, pseudo=False) @ pose
             new_state = sweep(new_pose)
             dstep = error_of(state) - error_of(new_state)
             return new_pose, new_state, dstep, update, sok

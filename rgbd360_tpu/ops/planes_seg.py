@@ -48,10 +48,10 @@ def segment_planes(
     angular_threshold: float = ANGULAR_THRESHOLD,
     distance_threshold: float = DISTANCE_THRESHOLD,
     # pointer-jumps per round (schedule knob; every value reaches the same
-    # fixed point). 0 measured FASTEST on TPU (17.8 / 21.3 / 31.8 ms for
-    # 0/1/2 — tools/profile_seg_variants.py): the jump's label-chase is an
-    # XLA gather, per-element priced, and whole-run scans already cross any
-    # straight stretch in one round, so the doubling shortcut never pays.
+    # fixed point). Whole-run scans already cross any straight stretch in
+    # one round, so the doubling shortcut's label-chase gather rarely pays;
+    # which value is fastest on the H100 is not measured
+    # (tools/profile_seg_variants.py).
     jumps: int = 0,
 ):
     """Returns labels (H, W) int32: -1 invalid, else the component id (the
@@ -190,8 +190,8 @@ def refine_plane_labels(
     # REBIN into KP = hw/min_inliers + 1 top-count slots for the second
     # moments and the eigendecomposition (pigeonhole: no label with
     # >= min_inliers pixels can fall outside the top-KP by count, so the
-    # model SET is exactly the full-bin path's; measured on chip: the model
-    # build drops 11.5 -> 7.0 ms, mostly the (hw+1)-row _eigh3x3).
+    # model SET is exactly the full-bin path's; the saving is mostly the
+    # (hw+1)-row _eigh3x3, not measured on the H100).
     # The full-(hw+1)-bin path remains for grids where KP would be large
     # (e.g. a stereo panorama at min_inliers=40), where the top_k would
     # cost more than the eigh saves.

@@ -71,10 +71,9 @@ def stitch_spherical(
         ui = jnp.clip(u.astype(jnp.int32), 0, size_w - 1)
         vi = jnp.clip(v.astype(jnp.int32), 0, size_h - 1)
         flat = vi * size_w + ui
-        # one gather of 16-byte packed rows [b, g, r, depth] — XLA's gather
-        # is per-element priced and 16-byte f32 rows are its fast path
-        # (PERF.md); separate u8-row and u16 takes each hit slow paths and
-        # measured 3x worse (tools/profile_frame.py)
+        # one gather of 16-byte packed rows [b, g, r, depth] instead of
+        # separate u8-row and u16 takes (their relative cost on the H100 is
+        # not measured; tools/profile_frame.py)
         packed = jnp.concatenate(
             [
                 sensor_rgb.reshape(-1, 3).astype(jnp.float32),

@@ -1,7 +1,7 @@
-"""Multi-chip scale-out over a jax.sharding.Mesh.
+"""Multi-device scale-out over a jax.sharding.Mesh.
 
 The workload's parallel structure (SURVEY.md §2.3): independent frame-pair
-registrations scale data-parallel over ICI-connected chips; the 8-sensor
+registrations scale data-parallel over the devices of one host; the 8-sensor
 dimension is a batch axis inside each registration; map-level ops
 (relocalize-against-all-keyframes, loop-closure candidate sweeps) batch the
 same way. There is no model state to shard — weights-equivalents (calibration
@@ -35,24 +35,14 @@ def shard_pairs(mesh: Mesh, *arrays):
 
 
 @functools.lru_cache(maxsize=32)
-def _align_sharded_fn(
-    mesh: Mesh, method: int, n_levels: int, need_stats: bool = True,
-    full_coverage: bool = False,
-):
-    """One jitted callable per (mesh, method, n_levels, need_stats,
-    full_coverage) so repeated calls with stable shapes reuse the compiled
-    executable instead of retracing.
+def _align_sharded_fn(mesh: Mesh, method: int, n_levels: int):
+    """One jitted callable per (mesh, method, n_levels) so repeated calls
+    with stable shapes reuse the compiled executable instead of retracing.
 
-    shard_map, not in_shardings: the L0-L2 sweeps run the Mosaic warp kernel
-    on TPU, and a Pallas custom call carries no GSPMD partitioning rule — the
-    auto-spmd partitioner cannot split it across chips, so the kernel must be
-    placed under MANUAL sharding where every chip runs the whole fused
-    program on its local slice of the pair axis. Pairs are independent
-    (SURVEY §2.3): no collectives in the body, outputs stay pair-sharded."""
-    local = functools.partial(
-        align_batch, method=method, n_levels=n_levels, need_stats=need_stats,
-        full_coverage=full_coverage,
-    )
+    shard_map: every device runs the whole fused program on its local slice
+    of the pair axis. Pairs are independent (SURVEY §2.3): no collectives in
+    the body, outputs stay pair-sharded."""
+    local = functools.partial(align_batch, method=method, n_levels=n_levels)
     sharded = jax.shard_map(
         lambda gs, ds, gt, dt, p: local(gs, ds, gt, dt, p),
         mesh=mesh,
@@ -76,23 +66,20 @@ def align_batch_sharded(
     pose_guess,
     method: int = photoicp.PHOTO_DEPTH,
     n_levels: int = 5,
-    need_stats: bool = True,
-    full_coverage: bool = False,
 ) -> photoicp.AlignResult:
     """Data-parallel batched registration: batch axis split over PAIR_AXIS
-    under shard_map (manual SPMD — required for the Mosaic kernel path, see
-    _align_sharded_fn). The batch must divide by the mesh size; no
-    collectives are needed in the steady state because pairs are independent
-    (gradients/Hessians are per-pair 6x6 — they never cross chips).
+    under shard_map. The batch must divide by the mesh size; no collectives
+    are needed in the steady state because pairs are independent
+    (gradients/Hessians are per-pair 6x6 — they never cross devices).
     """
-    fn = _align_sharded_fn(mesh, method, n_levels, need_stats, full_coverage)
+    fn = _align_sharded_fn(mesh, method, n_levels)
     return fn(gray_src, depth_src, gray_trg, depth_trg, pose_guess)
 
 
 def prefilter_candidates_sharded(mesh: Mesh, frame_pbmap, cand_pbmaps, config, mode):
     """Relocalize/loop-closure candidate sweep with the keyframe axis split
-    over the mesh (SURVEY §2.3: map-level ops batch over KFs and ride ICI;
-    the query frame's plane set is replicated, each chip scores its shard of
+    over the mesh (SURVEY §2.3: map-level ops batch over KFs; the query
+    frame's plane set is replicated, each device scores its shard of
     candidate keyframes, the boolean compatibility reductions come back with
     one tiny all-gather inserted by XLA). Candidate count is padded up to a
     mesh multiple; results match core.batch_match.prefilter_candidates."""

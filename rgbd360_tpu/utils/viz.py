@@ -1,7 +1,7 @@
 """Visualization artifact dumps.
 
 The reference renders interactively through PCL viewers on a render thread
-(include/*Visualizer*.h); in a headless TPU deployment the equivalent is
+(include/*Visualizer*.h); in a headless deployment the equivalent is
 artifact export: PNG panoramas, PLY/PCD point clouds and trajectory text
 files that any viewer can load (SURVEY.md §2.1 'Visualizers' row).
 """
@@ -9,19 +9,38 @@ files that any viewer can load (SURVEY.md §2.1 'Visualizers' row).
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import Optional
 
 import numpy as np
 
 
-def save_png(path: str, img: np.ndarray) -> None:
-    from PIL import Image
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (
+        struct.pack(">I", len(data)) + tag + data
+        + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+    )
 
-    img = np.asarray(img)
+
+def save_png(path: str, img: np.ndarray) -> None:
+    """8-bit PNG of an (H, W) gray or (H, W, 3) RGB image, written with zlib
+    alone (no imaging library): every scanline uses filter type 0."""
+    img = np.ascontiguousarray(np.asarray(img).astype(np.uint8))
     if img.ndim == 3 and img.shape[2] == 3:
-        Image.fromarray(img.astype(np.uint8)).save(path)
+        color_type = 2
+    elif img.ndim == 2:
+        color_type = 0
     else:
-        Image.fromarray(img.astype(np.uint8), mode="L").save(path)
+        raise ValueError(f"save_png takes (H, W) or (H, W, 3), got {img.shape}")
+    h, w = img.shape[:2]
+    rows = img.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(_png_chunk(b"IEND", b""))
 
 
 def depth_to_u8(depth_mm: np.ndarray, max_mm: float = 6000.0) -> np.ndarray:

@@ -19,7 +19,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 @pytest.fixture(scope="module")
 def synthetic_seq(tmp_path_factory):
-    """A 6-frame synthetic loop dataset shared by the SLAM app runs."""
+    """A 6-frame synthetic loop dataset shared by the SLAM app runs; the
+    directory is also the data root the apps load the rig from."""
     from tools.make_synthetic_sequence import main as gen
 
     d = str(tmp_path_factory.mktemp("room_seq"))
@@ -33,7 +34,7 @@ def test_kf_sphere_slam_app_end_to_end(synthetic_seq, tmp_path, capsys):
     from rgbd360_tpu.apps.kf_sphere_slam import main as slam_main
 
     out = str(tmp_path / "out")
-    assert slam_main([synthetic_seq, "--out", out]) == 0
+    assert slam_main([synthetic_seq, "--calib-root", synthetic_seq, "--out", out]) == 0
     text = capsys.readouterr().out
     assert "first_keyframe" in text
     # at least one promotion beyond the first: promoted frames print the
@@ -58,7 +59,7 @@ def test_sphere_graph_slam_app_end_to_end(synthetic_seq, tmp_path, capsys):
     from rgbd360_tpu.apps.sphere_graph_slam import main as slam_main
 
     out = str(tmp_path / "out")
-    assert slam_main([synthetic_seq, "--out", out]) == 0
+    assert slam_main([synthetic_seq, "--calib-root", synthetic_seq, "--out", out]) == 0
     text = capsys.readouterr().out
     assert "tracked" in text or "RELOCALIZED" in text
     for artifact in ("map.html", "pose_graph.g2o", "trajectory_slam.txt"):
@@ -71,7 +72,7 @@ def test_kf_odometry_app_end_to_end(synthetic_seq, tmp_path, capsys):
     from rgbd360_tpu.apps.kf_odometry import main as kf_main
 
     out = str(tmp_path / "out")
-    assert kf_main([synthetic_seq, "--out", out]) == 0
+    assert kf_main([synthetic_seq, "--calib-root", synthetic_seq, "--out", out]) == 0
     assert os.path.exists(os.path.join(out, "trajectory_kf.txt"))
     rows = np.loadtxt(os.path.join(out, "trajectory_kf.txt"))
     assert np.all(np.abs(rows.reshape(-1, 4, 4)[:, :3, 3]) < 5.0)
@@ -85,11 +86,12 @@ def test_loader_apps_on_synthetic(synthetic_seq, tmp_path):
 
     out1 = str(tmp_path / "sphere")
     frame = os.path.join(synthetic_seq, "sphere_images_1.bin")
-    assert sphere_main([frame, "--out", out1, "--planes"]) == 0
+    assert sphere_main([frame, "--calib-root", synthetic_seq, "--out", out1, "--planes"]) == 0
     assert any(f.endswith(".png") for f in os.listdir(out1))
     out2 = str(tmp_path / "seq")
     assert seq_main(
-        [synthetic_seq, "--out", out2, "--max-frames", "2", "--voxel", "0.1"]
+        [synthetic_seq, "--calib-root", synthetic_seq, "--out", out2, "--max-frames", "2",
+         "--voxel", "0.1"]
     ) == 0
     assert any(f.endswith((".ply", ".pcd")) for f in os.listdir(out2))
 
@@ -104,14 +106,14 @@ def test_calibration_apps_on_synthetic(synthetic_seq, tmp_path, capsys):
 
     out = str(tmp_path / "cp")
     assert gcp_main(
-        [synthetic_seq, "--out", out, "--max-frames", "2"]
+        [synthetic_seq, "--calib-root", synthetic_seq, "--out", out, "--max-frames", "2"]
     ) == 0
     assert os.listdir(out)
-    assert eval_main([synthetic_seq, "--max-frames", "2"]) == 0
+    assert eval_main([synthetic_seq, "--calib-root", synthetic_seq, "--max-frames", "2"]) == 0
     assert "depth" in capsys.readouterr().out.lower()
     out_v = str(tmp_path / "viz")
     frame = os.path.join(synthetic_seq, "sphere_images_1.bin")
-    assert viz_main([frame, "--out", out_v]) == 0
+    assert viz_main([frame, "--calib-root", synthetic_seq, "--out", out_v]) == 0
     assert os.listdir(out_v)
 
 
@@ -120,7 +122,7 @@ def test_online_calibration_app_on_synthetic(synthetic_seq, capsys):
     frames and report the refined extrinsics' consistency."""
     from rgbd360_tpu.apps.online_calibration import main as ocal_main
 
-    assert ocal_main([synthetic_seq, "--max-frames", "2"]) == 0
+    assert ocal_main([synthetic_seq, "--calib-root", synthetic_seq, "--max-frames", "2"]) == 0
     assert capsys.readouterr().out.strip()
 
 
@@ -165,7 +167,7 @@ def test_odometry_app_end_to_end(synthetic_seq, tmp_path, capsys):
     from rgbd360_tpu.apps.odometry import main as odo_main
 
     out = str(tmp_path / "out")
-    assert odo_main([synthetic_seq, "--out", out]) == 0
+    assert odo_main([synthetic_seq, "--calib-root", synthetic_seq, "--out", out]) == 0
     text = capsys.readouterr().out
     assert "avDepth" in text
     rows = np.loadtxt(os.path.join(out, "trajectory.txt"))
@@ -181,7 +183,8 @@ def test_labelize_app_end_to_end(synthetic_seq, tmp_path, capsys):
 
     out = str(tmp_path / "out")
     assert label_main(
-        [synthetic_seq, "--labels", "0=wall,1=floor", "--out", out]
+        [synthetic_seq, "--calib-root", synthetic_seq, "--labels", "0=wall,1=floor",
+         "--out", out]
     ) == 0
     text = capsys.readouterr().out
     assert "planes labeled" in text
@@ -193,7 +196,8 @@ def test_pair_calibrator_app_online_mode(synthetic_seq, capsys):
     the synthetic frames and report the Rt estimate."""
     from rgbd360_tpu.apps.pair_calibrator import main as pc_main
 
-    rc = pc_main(["--dataset", synthetic_seq, "--pair", "0", "1", "--max-frames", "3"])
+    rc = pc_main(["--dataset", synthetic_seq, "--calib-root", synthetic_seq,
+                  "--pair", "0", "1", "--max-frames", "3"])
     text = capsys.readouterr().out
     assert "correspondences for pair 0-1" in text
     assert rc == 0 and "Rt estimate" in text
@@ -207,7 +211,7 @@ def test_methods_register_app_on_synthetic_pair(synthetic_seq, capsys):
 
     f1 = os.path.join(synthetic_seq, "sphere_images_1.bin")
     f2 = os.path.join(synthetic_seq, "sphere_images_2.bin")
-    assert mr_main([f1, f2]) == 0
+    assert mr_main([f1, f2, "--calib-root", synthetic_seq]) == 0
     text = capsys.readouterr().out
     assert "max deviation from mean translation" in text
     assert "Dense Photo+Depth" in text

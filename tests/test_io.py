@@ -1,6 +1,7 @@
 import os
 
 import numpy as np
+import pytest
 
 from rgbd360_tpu.io.boost_archive import RawFrame360, read_frame360_bin, write_frame360_bin
 from rgbd360_tpu.io.clams import load_clams_model
@@ -237,13 +238,15 @@ def test_load_rawlog_grouping_and_ring_poses(tmp_path, rng):
     np.testing.assert_allclose(p, np.eye(4), atol=1e-12)
 
 
-def test_load_rawlog_app_end_to_end(tmp_path, rng, capsys):
+def test_load_rawlog_app_end_to_end(tmp_path, rng, capsys, nominal_root):
     from rgbd360_tpu.apps.load_rawlog import main as rawlog_main
 
     path = tmp_path / "t.rawlog"
     _synthetic_rawlog(path, rng, n_frames=2, h=240, w=320)
     out = tmp_path / "out"
-    assert rawlog_main([str(path), "--out", str(out), "--mode", "images"]) == 0
+    assert rawlog_main(
+        [str(path), "--calib-root", nominal_root, "--out", str(out), "--mode", "images"]
+    ) == 0
     assert "processed 2 omnidirectional frames" in capsys.readouterr().out
     assert (out / "rgb_0000.png").exists() and (out / "depth_0001.png").exists()
 
@@ -643,3 +646,90 @@ def test_rawlog_adversarial_fuzz(tmp_path, rng):
     blob[len(blob) // 2 :] = bytes(len(blob) - len(blob) // 2)  # zero the tail
     with pytest.raises((ValueError, EOFError)):
         _read_cimage(_io.BytesIO(bytes(blob)))
+
+
+def _read_png_filter0(path):
+    """Minimal decoder for the PNGs utils.viz.save_png writes (8-bit gray or
+    RGB, one IDAT, filter type 0 on every scanline)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF, tag
+        chunks[tag] = body
+        pos += 12 + n
+    w, h, depth, color, _c, _f, _i = struct.unpack(">IIBBBBB", chunks[b"IHDR"])
+    assert depth == 8 and b"IEND" in chunks
+    ch = {0: 1, 2: 3}[color]
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + w * ch)
+    assert (raw[:, 0] == 0).all()
+    img = raw[:, 1:].reshape(h, w, ch)
+    return img[..., 0] if ch == 1 else img
+
+
+@pytest.mark.parametrize("shape", [(7, 13), (5, 11, 3)])
+def test_save_png_round_trip(tmp_path, shape):
+    from rgbd360_tpu.utils.viz import save_png
+
+    img = np.random.default_rng(4).integers(0, 256, shape, dtype=np.uint8)
+    path = str(tmp_path / "x.png")
+    save_png(path, img)
+    np.testing.assert_array_equal(_read_png_filter0(path), img)
+    try:  # an independent decoder, where one is installed
+        from PIL import Image
+    except ImportError:
+        return
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
+
+
+def test_clams_model_write_load_round_trip(tmp_path):
+    from rgbd360_tpu.io.clams import DepthDistortionModel, write_clams_model
+
+    rng = np.random.default_rng(5)
+    model = DepthDistortionModel(
+        width=64, height=48, bin_width=8, bin_height=6, bin_depth=2.0,
+        multipliers=rng.uniform(0.9, 1.1, (8, 8, 5)).astype(np.float32),
+        counts=rng.integers(0, 200, (8, 8, 5)).astype(np.float32),
+    )
+    path = str(tmp_path / "distortion_model1")
+    write_clams_model(path, model)
+    back = load_clams_model(path)
+    assert (back.width, back.height, back.bin_width, back.bin_height, back.bin_depth) == (
+        64, 48, 8, 6, 2.0)
+    np.testing.assert_array_equal(back.multipliers, model.multipliers)
+    np.testing.assert_array_equal(back.counts, model.counts)
+
+
+def test_nominal_data_root_rig_and_matcher_config(nominal_root):
+    """The generated data root loads like the reference's: the ideal rig's
+    extrinsics and the matcher defaults, read back through the apps' own
+    loaders."""
+    from rgbd360_tpu.apps.common import default_matcher_config, load_calib
+    from rgbd360_tpu.core.calibrator import construction_specs
+    from rgbd360_tpu.core.matcher import MatcherConfig
+
+    calib = load_calib(nominal_root)
+    np.testing.assert_allclose(calib.Rt, construction_specs(), atol=1e-7)
+    assert MatcherConfig.from_ini(default_matcher_config(nominal_root)) == MatcherConfig()
+
+
+def test_nominal_data_root_undistort_is_identity(nominal_root):
+    from rgbd360_tpu.apps.common import load_calib
+    from rgbd360_tpu.ops.undistort import undistort_depth_mm
+
+    calib = load_calib(nominal_root)
+    mults, counts, geom = calib.device_intrinsic_arrays()
+    assert mults.shape == (8, 80, 80, 5)  # QVGA: 4x3-pixel bins after downsampling
+    depth = np.random.default_rng(6).integers(0, 9000, (8, 240, 320)).astype(np.uint16)
+    out = np.asarray(undistort_depth_mm(
+        depth, mults, counts, bin_width=geom.bin_width, bin_height=geom.bin_height,
+        bin_depth=geom.bin_depth,
+    ))
+    np.testing.assert_allclose(out, depth.astype(np.float32) * 0.001, rtol=1e-6)

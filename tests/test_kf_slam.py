@@ -88,7 +88,7 @@ class FakeAligner:
     def set_source_frame(self, rgb, depth):
         self._source = rgb
 
-    def align_frames360(self, seed, method, occlusion=0, full_coverage=False):
+    def align_frames360(self, seed, method, occlusion=0):
         key = (self._target, self._source)
         assert key in self.script, f"unscripted dense align {key}"
         self._resid, rel_cloud = self.script[key]

@@ -85,7 +85,9 @@ def test_slam_app_live_flag(tmp_path, monkeypatch):
     seq = tmp_path / "seq"
     assert gen(["--out", str(seq), "--frames", "3", "--radius", "0.8"]) == 0
     live = tmp_path / "live"
-    rc = kf_sphere_slam.main([str(seq), "--live-view", str(live), "--live-port", "0"])
+    rc = kf_sphere_slam.main(
+        [str(seq), "--calib-root", str(seq), "--live-view", str(live), "--live-port", "0"]
+    )
     assert rc in (0, None)
     d = json.loads((live / "live.json").read_text())
     assert len(d["traj"]) >= 1

@@ -199,13 +199,7 @@ def test_loop_closure_batched_multi_candidate_matches_sequential(calib):
         aligner.set_source_frame(f_new.sphere_rgb, f_new.sphere_depth_mm)
         # seed with the stored (already conjugated-back) relative pose
         seq_guess = lc.rot_offset @ rel_est @ np.linalg.inv(lc.rot_offset)
-        # full_coverage=True is the LC configuration (both the batched and
-        # the sequential-fallback paths in core/loop_closure.py use it);
-        # omitting it here compares a DIFFERENT gather schedule whose
-        # last-ulp drift the accept/reject cascade amplifies past atol
-        aligner.align_frames360(
-            seq_guess.astype(np.float32), PHOTO_DEPTH, full_coverage=True
-        )
+        aligner.align_frames360(seq_guess.astype(np.float32), PHOTO_DEPTH)
         seq_rel = (
             np.linalg.inv(lc.rot_offset)
             @ aligner.get_optimal_pose().astype(np.float64)

@@ -1,17 +1,10 @@
-"""The Mosaic kernel ∘ sharding composition (VERDICT r3 next-round #3).
+"""Sharded dense refinement (SURVEY §2.3 map-level multi-device ops).
 
-dryrun_multichip's 32x192 shapes all fall below WARP_KERNEL_MIN_PIXELS, so
-until round 4 the kernel path never executed under a mesh anywhere — the
-thing that would actually break on a real pod. align_batch_sharded now runs
-under shard_map (a Pallas custom call carries no GSPMD partitioning rule, so
-manual sharding is the only composition that works on hardware); these tests
-drive the REAL kernel body (pallas interpret mode, as
-tests/test_warp_kernel_interpret.py) through that composition on the 8
-virtual CPU devices and pin parity against the single-device program.
-
-Also gates the round-4 routing change in core/loop_closure.py: the LC dense
-refinement bucket now splits over the pair mesh when >1 device is present
-(previously only the candidate prefilter used the mesh).
+Gates the routing in core/loop_closure.py: the LC dense refinement bucket
+splits over the pair mesh when more than one device is present, and the
+sharded bucket returns the same accept-gate quantities as the
+single-device program. Runs on the 8 virtual CPU devices
+(tests/conftest.py).
 """
 
 import types
@@ -21,88 +14,9 @@ import pytest
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
-from rgbd360_tpu.ops import photoicp as pi
-from rgbd360_tpu.ops import warp_gather as wg
 from rgbd360_tpu.parallel import mesh as pmesh
 from rgbd360_tpu.parallel.batch import align_batch
-
-
-@pytest.fixture()
-def interpret_kernel_counted(monkeypatch):
-    """Interpret-mode pallas + forced kernel routing for levels >= 4096 px,
-    with a trace-time call counter so a test can assert the kernel body was
-    genuinely staged into the program under test (not silently skipped by a
-    routing change)."""
-    calls = []
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k.setdefault("interpret", True)
-        calls.append(k.get("grid_spec") or k.get("grid"))
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pl, "pallas_call", patched)
-    monkeypatch.setattr(pi, "_use_warp_kernel", lambda shape: shape[0] * shape[1] >= 4096)
-    # stale-trace hygiene: every cache that could hold a kernel-off trace of
-    # the same shapes must be cleared, both entering and leaving
-    def clear():
-        wg.warp_gather_batched.clear_cache()
-        wg.warp_gather_batched_multi.clear_cache()
-        align_batch.clear_cache()
-        pmesh._align_sharded_fn.cache_clear()
-
-    clear()
-    yield calls
-    clear()
-
-
-def _rolled_pair(h, w, batch):
-    """Deterministic textured scene; target = source rolled one column, so
-    the GN loop converges in a couple of iterations (interpret mode is slow)
-    while still doing real kernel-path work."""
-    rng = np.random.default_rng(5)
-    g = rng.uniform(0.2, 0.8, size=(h, w)).astype(np.float32)
-    d = rng.uniform(1.5, 3.5, size=(h, w)).astype(np.float32)
-    gs = np.broadcast_to(g, (batch, h, w)).copy()
-    ds = np.broadcast_to(d, (batch, h, w)).copy()
-    gt = np.broadcast_to(np.roll(g, 1, axis=1), (batch, h, w)).copy()
-    dt = np.broadcast_to(np.roll(d, 1, axis=1), (batch, h, w)).copy()
-    poses = np.broadcast_to(np.eye(4, dtype=np.float32), (batch, 4, 4)).copy()
-    return gs, ds, gt, dt, poses
-
-
-def test_kernel_path_under_shard_map_matches_single_device(interpret_kernel_counted):
-    if len(jax.devices()) < 2:
-        pytest.skip("needs the 8-virtual-device CPU mesh (tests/conftest.py)")
-    h, w, batch = 32, 128, len(jax.devices())
-    gs, ds, gt, dt, poses = _rolled_pair(h, w, batch)
-    args = tuple(jnp.asarray(x) for x in (gs, ds, gt, dt, poses))
-
-    res_1 = align_batch(*args, n_levels=2)
-    n_calls_single = len(interpret_kernel_counted)
-    assert n_calls_single > 0, "kernel body never staged — routing is off, test vacuous"
-    p1 = np.asarray(res_1.pose)
-
-    mesh = pmesh.make_mesh()
-    res_s = pmesh.align_batch_sharded(mesh, *pmesh.shard_pairs(mesh, *args), n_levels=2)
-    assert len(interpret_kernel_counted) > n_calls_single, (
-        "kernel body never staged into the SHARDED program"
-    )
-    p_s = np.asarray(res_s.pose)
-
-    # each device runs the identical per-pair program on its local slice:
-    # parity with the single-device batch at f32 reduction-order noise
-    np.testing.assert_allclose(p_s, p1, atol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(res_s.error), np.asarray(res_1.error), rtol=1e-4, atol=1e-8
-    )
-    np.testing.assert_array_equal(
-        np.asarray(res_s.num_iterations), np.asarray(res_1.num_iterations)
-    )
-    # and the scene is non-trivial: a real (rolled) motion was recovered
-    assert np.abs(p1[0] - np.eye(4)).max() > 1e-4
 
 
 def test_lc_refine_batch_routes_through_mesh(monkeypatch):
@@ -157,7 +71,7 @@ def test_lc_refine_batch_routes_through_mesh(monkeypatch):
     seeds = np.stack([np.eye(4, dtype=np.float32)] * 2)
     res = align_batch(
         jnp.asarray(gs), jnp.asarray(ds), jnp.asarray(gt), jnp.asarray(dt),
-        jnp.asarray(seeds), n_levels=2, full_coverage=True,
+        jnp.asarray(seeds), n_levels=2,
     )
     assert len(out_sharded) == 2
     for k, (cand, pose, av_depth, H, sso) in enumerate(out_sharded):

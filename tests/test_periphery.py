@@ -250,11 +250,13 @@ def test_tof_calibrator_app_demo(capsys):
     assert "tof-from-rgbd extrinsic estimate" in out
 
 
-def test_online_odometry_synthetic(tmp_path, capsys):
+def test_online_odometry_synthetic(tmp_path, capsys, nominal_root):
     """OnlineOdometryRGBD360 equivalent on the synthetic grabber source."""
     from rgbd360_tpu.apps.online_odometry import main as online_main
 
-    assert online_main(["--synthetic", "2", "--out", str(tmp_path)]) == 0
+    assert online_main(
+        ["--synthetic", "2", "--calib-root", nominal_root, "--out", str(tmp_path)]
+    ) == 0
     assert (tmp_path / "trajectory_online.txt").exists()
 
 

@@ -412,3 +412,54 @@ def test_calc_entropy_matches_reference_formula(rng):
                       + np.log(np.linalg.det(np.linalg.inv(H.astype(np.float64)))))
     got = float(photoicp.calc_entropy(jnp.asarray(H)))
     assert got == pytest.approx(expected, rel=1e-5)
+
+
+# twists [v, w] (mrpt pseudo-exponential, w about the vertical x axis first)
+SWEEP_MOTIONS = {
+    # tracking-scale: a few mm and a fraction of a degree
+    "small": [0.01, -0.005, 0.01, 0.002, -0.003, 0.002],
+    # a yaw of 0.2 rad moves every column ~3.8 px at w=120, so the columns
+    # next to the theta seam land on the far side of it
+    "theta_seam": [0.0, 0.01, -0.01, 0.2, 0.0, 0.0],
+    # loop-closure scale: ~25 cm and several degrees
+    "lc_scale": [0.05, 0.2, -0.15, 0.05, 0.08, -0.04],
+}
+
+
+@pytest.mark.parametrize("motion", sorted(SWEEP_MOTIONS))
+@pytest.mark.parametrize("method", [0, 1, 2])
+def test_fused_sweep_matches_reference(rng, method, motion):
+    """The fused sweep over the packed target rows (one gather of 16-byte
+    rows, f16 gradient pairs) against the scalar reference
+    (ref_impl.error_sphere + hess_grad_sphere) at tracking, seam-straddling
+    and loop-closure-scale motion. Tolerances are the golden-parity ones:
+    the f16 gradients shift the saliency test for a few pixels."""
+    level_np, level_jx = _small_level(rng)
+    pose = np.asarray(
+        se3.exp_se3(jnp.asarray(SWEEP_MOTIONS[motion], jnp.float32), pseudo=True)
+    )
+    pose64 = pose.astype(np.float64)
+    xyz_np, valid_np = ref_impl.build_sphere_lut(level_np["depth_src"])
+    e_ref = ref_impl.error_sphere(level_np, xyz_np, valid_np, pose64, method)
+    H_ref, g_ref, sso_ref = ref_impl.hess_grad_sphere(level_np, xyz_np, valid_np, pose64, method)
+
+    xyz, valid = sphere_xyz_lut(level_jx.depth_src, 0.3, 6.0)
+    err, H, g, sso, *_ = photoicp.fused_sweep_sphere(
+        level_jx.gray_src.reshape(-1), photoicp.pack_target_channels(level_jx),
+        level_jx.gray_src.shape, xyz, valid, jnp.asarray(pose), method,
+    )
+    assert float(err) == pytest.approx(e_ref, rel=5e-4, abs=1e-5)
+    hs = max(np.abs(H_ref).max(), 1.0)
+    np.testing.assert_allclose(np.asarray(H) / hs, H_ref / hs, atol=5e-4)
+    gs = max(np.abs(g_ref).max(), 1.0)
+    np.testing.assert_allclose(np.asarray(g) / gs, g_ref / gs, atol=5e-3)
+    assert float(sso) == pytest.approx(sso_ref, abs=1e-6)
+    if motion == "theta_seam":
+        # the warp really crosses the seam: source columns next to one side
+        # of it land on target columns next to the other side
+        p = xyz_np @ pose64[:3, :3].T + pose64[:3, 3]
+        theta = np.arctan2(p[:, 1], p[:, 2]) + np.pi
+        col = np.floor(theta * 120 / (2 * np.pi) + 0.5)
+        src_col = np.tile(np.arange(120), 20)
+        across = ((src_col <= 3) & (col >= 116)) | ((src_col >= 116) & (col <= 3))
+        assert np.any(valid_np & across)

@@ -2,8 +2,8 @@
 
 The bundled reference dataset ships only two frames (samples/sphere_images_
 {1,10}.bin), which exercises pair registration but not the SLAM loop. This
-tool ray-casts the tests/room_scene.py textured box room through the real
-8-sensor rig (shipped extrinsics) along a closed loop trajectory and writes
+tool ray-casts the tests/room_scene.py textured box room through the
+8-sensor rig (the construction-spec extrinsics) along a closed loop trajectory and writes
 reference-wire-format archives (io/boost_archive.write_frame360_bin, the
 byte-compatible Frame360.h:333-345 format), so every app that consumes
 sphere_images_%d.bin directories (odometry, KF odometry, both SLAM apps,
@@ -21,7 +21,13 @@ whole loop tracks against one keyframe.
 Ground-truth rig poses are saved alongside as poses_gt.txt (one 4x4
 row-major per line).
 
-Usage: python tools/make_synthetic_sequence.py --out /tmp/room_seq
+The output directory is also a complete reference-layout data root for the
+rig it was rendered with (write_nominal_data_root): the construction-spec
+extrinsics, identity CLAMS depth models and the matcher configuration, so
+every app runs on it with `--calib-root <out>` and nothing outside the
+repository.
+
+Usage: python tools/make_synthetic_sequence.py --out <dir>
            [--frames 40] [--radius 1.1] [--start 1]
 """
 
@@ -52,6 +58,29 @@ def loop_pose(theta: float, radius: float, center=(0.0, 0.6, -0.3)) -> np.ndarra
     return pose
 
 
+def write_nominal_data_root(root: str) -> None:
+    """Write a reference-layout data root for the ideal rig:
+    Calibration/Extrinsics/Rt_0{1..8}.txt from the construction specs
+    (core/calibrator.construction_specs), identity CLAMS models in
+    Calibration/Intrinsics/distortion_model{1..8}, and
+    config_files/configLocaliser_sphericalOdometry.ini with the
+    MatcherConfig defaults."""
+    from rgbd360_tpu.core.calibrator import construction_specs
+    from rgbd360_tpu.core.matcher import MatcherConfig
+    from rgbd360_tpu.io.clams import identity_clams_model, write_clams_model
+
+    ext = os.path.join(root, "Calibration", "Extrinsics")
+    intr = os.path.join(root, "Calibration", "Intrinsics")
+    cfg = os.path.join(root, "config_files")
+    for d in (ext, intr, cfg):
+        os.makedirs(d, exist_ok=True)
+    model = identity_clams_model()
+    for s, rt in enumerate(construction_specs()):
+        np.savetxt(os.path.join(ext, f"Rt_0{s + 1}.txt"), rt, fmt="%.9g")
+        write_clams_model(os.path.join(intr, f"distortion_model{s + 1}"), model)
+    MatcherConfig().to_ini(os.path.join(cfg, "configLocaliser_sphericalOdometry.ini"))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--out", required=True)
@@ -62,7 +91,6 @@ def main(argv=None) -> int:
                          "loop-closure gates)")
     ap.add_argument("--radius", type=float, default=1.1)
     ap.add_argument("--start", type=int, default=1, help="first frame number")
-    ap.add_argument("--calib-root", default=os.environ.get("RGBD360_REFERENCE", "/root/reference"))
     args = ap.parse_args(argv)
 
     from room_scene import raycast_room_sensor
@@ -76,8 +104,8 @@ def main(argv=None) -> int:
     from rgbd360_tpu.io.boost_archive import RawFrame360, write_frame360_bin
     from rgbd360_tpu.io.calib import Calib360
 
-    calib = Calib360.load(args.calib_root)
-    os.makedirs(args.out, exist_ok=True)
+    write_nominal_data_root(args.out)
+    calib = Calib360.load(args.out)
 
     poses = []
     for i in range(args.frames):

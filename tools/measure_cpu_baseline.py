@@ -5,7 +5,7 @@ this tool replaces it with a measurement. It times the independent C++ oracle's
 mode-4 full chain — pyramid build (pyrDown / valid-mean range / Jaimez
 gradients / seam masks) + the float spherical GN loop, re-derived from
 reference include/RegisterPhotoICP.h:292-398,4519-4784 — on the bundled pair
-at the exact workload the TPU bench runs (1920x320, 5 levels, PHOTO_DEPTH,
+at the exact workload bench.py runs (1920x320, 5 levels, PHOTO_DEPTH,
 reference iteration policy; the oracle reproduces the golden iteration
 signature [0,7,10,10,10], tests/test_cpp_oracle.py).
 

@@ -1,20 +1,20 @@
 """Micro-A/B the stats-buffer candidate compaction and the refine stages.
 
-The round-5 device bisect (tools/profile_planes_device.py) prices the
-candidate compaction at ~14.7 ms and refine_plane_labels at ~14.5 ms — the
-two fattest stages after segment. This probe decomposes both and prices
-alternative compaction formulations on the real bundled-frame data:
+The device bisect (tools/profile_planes_device.py) once priced the
+candidate compaction and refine_plane_labels as the two fattest stages
+after segment. This probe decomposes both and prices alternative
+compaction formulations on the real bundled-frame data:
 
   cumsum        the (8, hw) prefix sum alone
   scatter       cumsum + the (hw -> C+1) scatter .at[tgt].set (shipped)
   gathers       shipped + the cand_xyz/clab take_along_axis gathers
   sortpair      lax.sort of (key = cand ? pix : BIG) then slice C
   searchsorted  cidx[s] = searchsorted(cumsum, s+1) (binary-search gathers)
-  onehotdot     feats[s] = sum_i [pos_i == s & cand_i] * feat_i on the MXU
+  onehotdot     feats[s] = sum_i [pos_i == s & cand_i] * feat_i as a matmul
   refine_model  refine's model build alone (scatter-adds + eigh + gathers)
   refine_k<N>   N fixed refine sweeps (no while_loop, prices one sweep)
 
-Methodology: chained fori_loop per probe (PERF.md), bundled frame 1.
+Methodology: chained fori_loop per probe, bundled frame 1.
 """
 
 import argparse
@@ -43,12 +43,12 @@ def _frame_inputs():
 
 
 def _make_timed(k: int):
-    """Chained-fori_loop probe harness (PERF.md methodology), SHARED by both
+    """Chained-fori_loop probe harness, SHARED by both
     batteries so a methodology fix reaches every probe. fn(*inputs, eps) ->
     f32 scalar; eps is a data-dependent scalar the body MUST mix into its
     inputs — without it XLA hoists the loop-invariant computation out of the
     fori_loop and the probe prices one evaluation amortized over k
-    (measured: every such probe reads ~1 ms regardless of content)."""
+    (every such probe then reads the same time regardless of content)."""
     import jax
     import jax.numpy as jnp
 

@@ -1,4 +1,4 @@
-"""Bisect fast_bilateral_z internals on the real TPU: splat / blur /
+"""Bisect fast_bilateral_z internals on the accelerator: splat / blur /
 spatial-resize / depth-slice. Chained probes over the 8-sensor batch.
 
 Usage: python tools/profile_bilateral.py [--k 30]

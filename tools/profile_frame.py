@@ -1,5 +1,6 @@
-"""Per-stage timing of the frame-assembly pipeline on the real TPU
-(undistort -> stitch -> cloud/planes feed), PERF.md chained methodology.
+"""Per-stage timing of the frame-assembly pipeline on the accelerator
+(undistort -> stitch -> cloud/planes feed): k chained calls inside one jit,
+ended by block_until_ready.
 
 Usage: python tools/profile_frame.py [--k 100]
 """
@@ -55,14 +56,10 @@ def main():
             _, acc = jax.lax.fori_loop(0, k, body, (seed, jnp.float32(0)))
             return acc
 
-        np.asarray(run(seed))
-        np.asarray(jnp.zeros(()) + 1.0)
+        run(seed).block_until_ready()
         t0 = time.perf_counter()
-        np.asarray(jnp.zeros(()) + 1.0)
-        floor = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        np.asarray(run(seed))
-        return (time.perf_counter() - t0 - floor) / k * 1e3
+        run(seed).block_until_ready()
+        return (time.perf_counter() - t0) / k * 1e3
 
     # undistort: perturb the input depth (value-bearing chain)
     d_m = depth_mm.astype(jnp.float32) * 0.001

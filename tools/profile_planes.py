@@ -1,6 +1,6 @@
-"""Per-stage timing of the plane-extraction path on the real TPU.
+"""Per-stage timing of the plane-extraction path on the accelerator.
 
-Stages: device compute (chained, PERF.md methodology), device->host
+Stages: device compute (chained k calls in one jit), device->host
 transfer, host per-sensor fitting, host group+merge.
 
 Usage: python tools/profile_planes.py [--k 20] [--reps 5]

@@ -1,6 +1,6 @@
-"""Bisect the plane-extraction DEVICE program's 8 stages on the real TPU.
+"""Bisect the plane-extraction DEVICE program's 8 stages on the accelerator.
 
-Each probe is a chained fori_loop (PERF.md methodology) over a prefix of the
+Each probe is a chained fori_loop over a prefix of the
 pipeline, so stage cost = difference between consecutive probes.
 
 Usage: python tools/profile_planes_device.py [--k 20]
@@ -79,7 +79,7 @@ def main():
             if stage >= 5:
                 # THE production compaction (shared definition — the batched
                 # 2D scatter outside the vmap; a vmapped per-sensor copy once
-                # overstated this stage ~7x, 14.7 ms vs ~2 ms)
+                # overstated this stage several-fold)
                 from rgbd360_tpu.core.plane_extraction import (
                     MAX_CANDIDATES,
                     compact_candidate_indices,

@@ -1,4 +1,4 @@
-"""Measure flood-fill schedule variants of segment_planes on the real TPU.
+"""Measure flood-fill schedule variants of segment_planes on the accelerator.
 
 Variants: (sweeps per round, jumps per round). All must reach the same fixed
 point; what differs is rounds-to-converge vs per-round cost.
